@@ -24,15 +24,14 @@ def build_system():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    import yaml
 
     from lammps_buck_intel_tpu.io import read_data, lattice, velocity
+    from lammps_buck_intel_tpu.io.deck import load_deck
     from lammps_buck_intel_tpu.core import get_units, make_box
     from lammps_buck_intel_tpu.models.kspace import setup_pppm
 
-    with open(os.path.join(ROOT, "examples/decks/silica_pppm.yaml")) as f:
-        cfg = yaml.safe_load(f)
-    d = read_data(cfg["read_data"])
+    cfg = load_deck(os.path.join(ROOT, "examples/decks/silica_pppm.yaml"))
+    d = read_data(os.path.join(ROOT, cfg["read_data"]))
     x, lo, hi, pa, *_ = lattice.replicate(
         d.x, d.box_lo, d.box_hi, tuple(cfg["replicate"]),
         per_atom={"type": d.type, "q": d.q, "image": d.image},
@@ -71,15 +70,14 @@ def build_spce_system():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    import yaml
 
     from lammps_buck_intel_tpu.io import read_data, lattice, velocity
+    from lammps_buck_intel_tpu.io.deck import load_deck
     from lammps_buck_intel_tpu.core import get_units, make_box
     from lammps_buck_intel_tpu.models.kspace import setup_pppm
 
-    with open(os.path.join(ROOT, "examples/decks/spce.yaml")) as f:
-        cfg = yaml.safe_load(f)
-    d = read_data(cfg["read_data"])
+    cfg = load_deck(os.path.join(ROOT, "examples/decks/spce.yaml"))
+    d = read_data(os.path.join(ROOT, cfg["read_data"]))
     rep = lattice.replicate(
         d.x, d.box_lo, d.box_hi, tuple(cfg["replicate"]),
         per_atom={"type": d.type, "q": d.q, "image": d.image},

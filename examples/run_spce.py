@@ -37,8 +37,10 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     if args.f64:
         jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.jax_cache"))
+    from lammps_buck_intel_tpu.utils.compile_cache import (
+        enable_compile_cache)
+
+    enable_compile_cache()
 
     import jax.numpy as jnp
     from lammps_buck_intel_tpu.core import (

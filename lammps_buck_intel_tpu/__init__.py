@@ -1,6 +1,6 @@
-"""lammps_buck_intel_tpu — TPU-native molecular dynamics engine.
+"""lammps_buck_intel_tpu — a JAX molecular dynamics engine.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 HPAC/lammps-buck-intel (a LAMMPS USER-INTEL extension: Buckingham/LJ pair
 styles with cut/long-range Coulomb, PPPM and dispersion-PPPM electrostatics,
 NVE integration, and the host-LAMMPS machinery its decks exercise).

@@ -6,7 +6,7 @@ flags, and minimum-image displacement.  Triclinic (lamda-coordinate) support
 mirrors the hooks at /root/reference/pppm_intel.cpp:153-157 and is provided
 for the kspace grid mapping; the shipped decks are all orthogonal.
 
-Design note (TPU-first): on a single device we never materialise ghost atoms.
+Design note: on a single device we never materialise ghost atoms.
 With wrapped coordinates and cutoff < L/2 the minimum-image convention is an
 exact replacement for LAMMPS' ghost-atom machinery, and it keeps every array
 a fixed (N, ...) shape — no halo padding, no comm.  Multi-chip halo exchange
@@ -31,12 +31,10 @@ class Box(NamedTuple):
       /root/reference/pppm_intel.cpp:153-157).  LAMMPS' tilt restriction
       (|xy|,|xz| <= lx/2, |yz| <= ly/2) is assumed; ``make_box`` enforces it.
 
-    Keeping the box host-side is a measured TPU requirement, not a style
-    choice: a kernel that broadcasts 0-d *device* scalars into (N, K)
-    elementwise math compiles to catastrophically slow code (56 ms vs
-    0.03 ms for the pair kernel on v5e) — box constants must be baked into
-    the program at trace time, the analog of the reference baking cutoffs
-    into its template instantiations.  Tilt factors are likewise host
+    The box is kept host-side so that its constants are baked into the
+    program at trace time instead of broadcast from 0-d *device* scalars
+    into (N, K) elementwise math — the analog of the reference baking
+    cutoffs into its template instantiations.  Tilt factors are likewise host
     floats baked at trace time; the traced-box (NPT) path stays orthogonal.
     """
 

@@ -1,14 +1,19 @@
-"""Precision policy — the TPU analog of the reference's precision templating.
+"""Precision policy — the analog of the reference's precision templating.
 
 The reference compiles every kernel three ways, ``template<flt_t, acc_t>`` in
 single (float,float), mixed (float,double) and double (double,double) modes,
 selected at runtime from ``fix->precision()``
-(/root/reference/pair_buck_intel.cpp:48-62, pppm_intel.cpp:170-179).
+(pair_buck_intel.cpp:48-62, pppm_intel.cpp:170-179).
 
-On TPU the analog is a dtype policy threaded through array construction:
+Here the analog is a dtype policy threaded through array construction:
 ``flt`` is the per-pair compute dtype, ``acc`` the accumulation dtype for
-forces/energies/virials.  f64 is only available when x64 is enabled (CPU
-testing); on-device production mode is SINGLE (f32/f32).
+forces/energies/virials.  f64 needs ``jax_enable_x64``; the entry points
+turn it on for ``mixed`` and ``double`` decks on every backend.
+
+``MATMUL`` pins the precision of every device-side f32 ``einsum`` /
+``dot`` of the force path.  A GPU may run a DEFAULT-precision f32 matrix
+product in TF32 (about three decimal digits), which would break the
+1e-4 PPPM accuracy target without raising any error.
 """
 from __future__ import annotations
 
@@ -17,6 +22,8 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 
+MATMUL = jax.lax.Precision.HIGHEST
+
 
 @dataclasses.dataclass(frozen=True)
 class Precision:
@@ -24,12 +31,12 @@ class Precision:
     flt: jnp.dtype  # pair/grid compute dtype
     acc: jnp.dtype  # force / energy / virial accumulation dtype
     # compensated=True: positions/velocities integrate with Neumaier
-    # two-float accumulation (integrate/nve.py two_sum_acc) — the
-    # on-hardware analog of f64 accumulation where no f64 exists (TPU).
-    # Honored by BOTH the neighbor-list and the production cell-slot
-    # engine (residual planes ride the rebin permutation,
-    # neighbor/cell_slots.py SlotState.comp); triclinic cellpair falls
-    # back to nlist (the lamda wrap would destroy the two-float split).
+    # two-float accumulation (integrate/nve.py two_sum_acc) — f64-like
+    # integration drift from f32 state.  Honored by BOTH the neighbor-
+    # list and the production cell-slot engine (residual planes ride the
+    # rebin permutation, neighbor/cell_slots.py SlotState.comp);
+    # triclinic cellpair falls back to nlist (the lamda wrap would
+    # destroy the two-float split).
     compensated: bool = False
 
     def __post_init__(self):
@@ -45,16 +52,9 @@ def single() -> Precision:
 
 
 def mixed() -> Precision:
-    """The reference's mixed mode (f32 compute, f64 accumulate —
-    pair_buck_intel.cpp:50-52).  With x64 available (CPU tests) that is
-    literal; on f32-only hardware (TPU) the accumulated state instead
-    carries two-float compensation planes, which removes the secular
-    integration drift the f64 accumulators exist for."""
-    if jax.config.read("jax_enable_x64"):
-        return Precision("mixed", jnp.dtype(jnp.float32),
-                         jnp.dtype(jnp.float64))
-    return Precision("mixed", jnp.dtype(jnp.float32), jnp.dtype(jnp.float32),
-                     compensated=True)
+    """The reference's mixed mode: f32 compute, f64 accumulate
+    (pair_buck_intel.cpp:50-52).  Needs x64; raises without it."""
+    return Precision("mixed", jnp.dtype(jnp.float32), jnp.dtype(jnp.float64))
 
 
 def double() -> Precision:
@@ -62,11 +62,14 @@ def double() -> Precision:
 
 
 def single_comp() -> Precision:
-    """f32 everywhere + compensated integration — the forced-two-float
-    variant of ``mixed`` (what ``mixed`` resolves to on TPU), selectable
-    directly so CPU tests can exercise it under x64."""
+    """f32 everywhere + compensated (two-float) integration."""
     return Precision("single_comp", jnp.dtype(jnp.float32),
                      jnp.dtype(jnp.float32), compensated=True)
+
+
+def needs_x64(name: str) -> bool:
+    """True for the modes that accumulate (or compute) in f64."""
+    return name in ("mixed", "double")
 
 
 def get_precision(name: str) -> Precision:

@@ -1,6 +1,6 @@
 """Simulation state pytree + static topology.
 
-TPU-first replacement for the reference's data-layout engine
+Replacement for the reference's data-layout engine
 (``IntelBuffers``, /root/reference/intel_buffers.h): instead of AoS->AoSoA
 packing (``thr_pack``, intel_buffers.h:185-203) and per-thread force slabs
 (intel_buffers.h:49-54), state lives as device-resident SoA ``jnp.ndarray``s

@@ -1,4 +1,4 @@
-"""Cell-pair engine runner — production TPU path.
+"""Cell-pair engine runner — the production single-device path.
 
 Same L5 role as integrate/verlet.py but over the sorted slot layout
 (neighbor/cell_slots.py) with the dense cell-pair force kernel
@@ -63,7 +63,7 @@ class CellOverflowError(RuntimeError):
     ``run`` catches this at segment boundaries, rolls the state back to
     the segment start (pre-overflow — the flag is sticky, so any dropped
     pair poisons everything after it), grows the capacity, re-bins, and
-    replays — the TPU analog of IntelBuffers' grow-on-demand + the
+    replays — the analog of IntelBuffers' grow-on-demand + the
     offload overflow-flag retry (SURVEY.md §5.3, intel_buffers.h:65-99).
     """
 
@@ -87,7 +87,6 @@ class CellPairSimulation:
         thermostat: Optional[NVTConfig] = None,
         rigid=None,
         exclude_intra: bool = False,
-        pair_kernel: str = "xla",
     ):
         self.units = units
         self.precision = precision or single()
@@ -131,11 +130,10 @@ class CellPairSimulation:
             # run is detected by the sticky flag and raised at thermo; the
             # 8-quantized margin plus the skin-bounded drift makes it rare.
             # Density-adaptive z refinement (judge r3 #2): pick reach_z by
-            # the MEASURED padded-work model — finer z cells shrink the
-            # candidate volume per atom if this system's occupancy is
-            # tight enough to pay for the extra stencil offsets.
-            adaptive = (not self.box.is_triclinic and pair_kernel == "xla"
-                        and rigid is None)
+            # the padded-work model — finer z cells shrink the candidate
+            # volume per atom if this system's occupancy is tight enough
+            # to pay for the extra stencil offsets.
+            adaptive = not self.box.is_triclinic and rigid is None
             best = None
             for reach in ((1, 2, 3) if adaptive else (1,)):
                 g = cs.make_grid(n, L, cutneigh, reach_z=reach)
@@ -146,8 +144,7 @@ class CellPairSimulation:
                 capr = max(8, ((max(int(occ * 1.08), occ + 4) + 7) // 8)
                            * 8)
                 K = 9 * reach + 5        # half-stencil offsets
-                minor = ((K * capr + 127) // 128) * 128
-                work = g.ncell * capr * minor
+                work = g.ncell * capr * K * capr
                 if best is None or work < best[0]:
                     best = (work, reach, capr)
             _, reach, capr = best
@@ -227,18 +224,6 @@ class CellPairSimulation:
                 "compensated precision on a triclinic box (the lamda wrap "
                 "reconstructs positions, destroying the two-float split)")
 
-        # Pair kernel: XLA only.  Three hand Pallas variants (v1 dense,
-        # v2 lane-fused, v3 grid-pipelined) lost every hardware A/B to
-        # XLA's fusion of the pre-gathered j-planes into the physics
-        # (105.5 / 67.0 / 77.7 ms vs 34.4 ms on the 259k pair pass —
-        # PERF.md "Pair-kernel A/B") and were pruned in r5: a strictly
-        # dominated path is dead weight, and the measured record stays.
-        if pair_kernel != "xla":
-            raise ValueError(
-                f"unknown pair_kernel {pair_kernel!r}: the Pallas "
-                "variants were retired after losing every hardware A/B "
-                "(PERF.md); the XLA cell-tile kernel is the pair path")
-        self.pair_kernel = pair_kernel
         st = cs.from_atoms(
             self.grid, self.box, jax.device_get(system.x),
             jax.device_get(system.v), jax.device_get(system.image),
@@ -307,6 +292,9 @@ class CellPairSimulation:
         self.step_count = 0
         self._chunk_fns: dict[int, Callable] = {}
         self.timings = {"run": 0.0}
+        # capacity grows over the simulation's life (each one recompiles
+        # every grid-shaped function; see _grow_capacity)
+        self.capacity_grows = 0
         self._thermo_jit = jax.jit(self._thermo_device)
 
     def _occupancy(self, system, typ_np) -> int:
@@ -866,7 +854,7 @@ class CellPairSimulation:
                 if thermo_every and self.step_count % thermo_every == 0:
                     emit()
                 elif self.step_count >= end:
-                    float(self.state.x[0])  # force completion
+                    jax.block_until_ready(self.state)
                     # surface the sticky overflow flag even with thermo
                     # disabled — a run must never return silently with
                     # dropped pairs (same contract as the NPT/slab engines)
@@ -876,6 +864,7 @@ class CellPairSimulation:
                 # roll back to the segment start (pre-overflow), grow the
                 # capacity, re-bin, replay — grow-on-demand (§5.3)
                 grows += 1
+                self.capacity_grows += 1
                 if grows > 4:
                     raise
                 self.state, self.body = snap[0], snap[1]

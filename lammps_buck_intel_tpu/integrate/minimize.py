@@ -2,7 +2,7 @@
 
 Host LAMMPS ships cg/sd/fire minimizers (SURVEY H7 periphery; the
 reference's in.* decks start from pre-equilibrated data instead).  A
-TPU-friendly minimizer must be jit-compilable with static shapes, which
+device-resident minimizer must be jit-compilable with static shapes, which
 rules out line searches with data-dependent trip counts — FIRE (Bitzek
 et al., PRL 97, 170201, 2006) is the natural fit: a fixed-form damped
 dynamics with scalar adaptive state (dt, alpha, n_pos) that lives in the

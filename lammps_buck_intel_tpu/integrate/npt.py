@@ -7,10 +7,10 @@ integration follows fix_nh.cpp's operator splitting: thermostat chain ->
 barostat omega update -> barostat velocity scale -> half kick -> drift +
 box dilation -> forces -> half kick -> barostat scale -> omega -> chain.
 
-TPU design: everywhere else in this framework the box is BAKED into the
-compiled program (core/box.py's measured contract).  NPT needs a variable
-cell, so this runner threads the box lengths through jit as a traced (3,)
-ARGUMENT (not a closure — closures are what poison XLA codegen).  Pair,
+Design: everywhere else in this framework the box is BAKED into the
+compiled program (core/box.py).  NPT needs a variable cell, so this
+runner threads the box lengths through jit as a traced (3,) ARGUMENT
+(not a closed-over device array).  Pair,
 bonded, and Ewald paths consume the traced lengths through
 ``core.box.axis_lengths`` / ``Ewald.compute_traced``; the neighbor-list
 bin GEOMETRY stays static (sized at setup with headroom) while bin
@@ -31,7 +31,7 @@ import numpy as np
 from ..core.box import Box, make_box
 from ..core.state import System
 from ..core.units import Units, LJ
-from ..core.precision import Precision, single
+from ..core.precision import MATMUL, Precision, single
 from ..neighbor.neighbor_list import make_spec, build
 from ..models.pair import compute_pair
 from ..models.pair.styles import PairStyle
@@ -465,7 +465,7 @@ class NPTSimulation:
         term the rigid barostat's MTK correction uses (only COM momenta
         couple to the cell)."""
         acc = self.precision.acc
-        M = jnp.asarray(self.rigid.mtotal, np.float64).astype(acc)
+        M = jnp.asarray(np.asarray(self.rigid.mtotal), acc)
         return jnp.stack([
             jnp.sum(M * bs.V[:, a].astype(acc) * bs.V[:, a].astype(acc))
             for a in range(3)]) * self.units.mvv2e
@@ -586,9 +586,10 @@ class NPTSimulation:
             # lamda-invariant dilation of a tilted cell: box VECTORS
             # scale by their axis factor (h' = h0 diag(cum*s)), so
             # x' = c + M (x - c) with M = h0 diag(s) h0^-1
-            M = (jnp.asarray(self._h0, x.dtype) * s[None, :]) \
-                @ jnp.asarray(self._h0_inv, x.dtype)
-            x = c + (x - c) @ M.T
+            M = jnp.matmul(jnp.asarray(self._h0, x.dtype) * s[None, :],
+                           jnp.asarray(self._h0_inv, x.dtype),
+                           precision=MATMUL)
+            x = c + jnp.matmul(x - c, M.T, precision=MATMUL)
         else:
             x = c + (x - c) * s[None, :]
         boxL = st.boxL * s
@@ -805,7 +806,7 @@ class NPTSimulation:
             if thermo_every:
                 emit()
         if not thermo_every:
-            float(self.state.x[0, 0])  # force completion
+            jax.block_until_ready(self.state)
         # guards must fire even with thermo_every=0 (advisor r2): cheap
         # scalar device_gets of the sticky overflow flag + shrink ratio
         if bool(jax.device_get(self.state.overflow)):

@@ -51,10 +51,9 @@ def final_integrate(p: NVEParams, v, f):
     return v + (p.dtf * p.mass_inv) * f.astype(v.dtype)
 
 
-# ---- compensated (two-float) integration: the on-hardware analog of the
+# ---- compensated (two-float) integration: an f32-only analog of the
 # reference's mixed precision mode (f32 compute / f64 accumulate,
-# /root/reference/pair_buck_intel.cpp:50-52).  TPUs have no f64, so the
-# accumulated quantities — positions and velocities, whose per-step update
+# pair_buck_intel.cpp:50-52).  The accumulated quantities — positions and velocities, whose per-step update
 # rounding is what makes single-precision MD drift over 10^3+ steps — carry
 # a Neumaier compensation plane: (s, c) with s + c the exact running sum.
 

@@ -26,6 +26,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..core.precision import MATMUL
+
 
 @dataclasses.dataclass(frozen=True)
 class ShakeConstraints:
@@ -292,16 +294,13 @@ class ShakeClusters:
     """Constraint connectivity regrouped into per-cluster dense form.
 
     The scatter-form solvers above update the GLOBAL position array
-    twice per iteration (40 scatter-adds per step at 20 iters) — the
-    classic TPU anti-pattern: measured 644 ms/call at SPC/E scale
-    (288k constraints, 1.15M slot rows).  Constraints only couple
-    within a cluster (a water, a shake'd methyl, a rigidified
-    molecule), so the TPU-native form gathers each cluster's atoms
-    once into per-component (A, M) locals — cluster index M on the
-    128-lane minor axis (see _lanes_last: the first dense form kept
-    3-vectors on the lanes and its 42x pad measured 432 ms/step) —
-    iterates with STATIC +-1/∓invm contraction tensors (pure VPU
-    work), and scatters the net correction back once.  Same Jacobi
+    twice per iteration (40 scatter-adds per step at 20 iters).
+    Constraints only couple within a cluster (a water, a shake'd
+    methyl, a rigidified molecule), so this form gathers each
+    cluster's atoms once into per-component (A, M) locals — cluster
+    index M on the minor axis (see _lanes_last) — iterates with
+    STATIC +-1/∓invm contraction tensors (pure elementwise work), and
+    scatters the net correction back once.  Same Jacobi
     under-relaxation, same iteration budget — identical math to
     shake_positions / rattle_velocities up to f32 reassociation.
 
@@ -389,10 +388,8 @@ def make_clusters(sc: ShakeConstraints) -> ShakeClusters:
 def _lanes_last(cl: ShakeClusters):
     """Static solver tensors in lanes-last (M-minor) layout.
 
-    The cluster axis M (one lane per molecule) must live on the 128-lane
-    minor dimension: the original (M, C/A, 3)-shaped locals put a size-3
-    dim on the lanes, a 42x pad that — times 20 SOR iterations — measured
-    432 ms/step at SPC/E scale (86% of the whole step).  Returns
+    The cluster axis M (one entry per molecule) lives on the wide minor
+    dimension instead of a size-3 component axis.  Returns
     (D, WT, d2T, cmaskT, invmsT, amaskT): D (C, A, M) is the +-1 one-hot
     difference tensor (r_c = sum_a D[c,a] x[a] = x_i - x_j), WT (C, A, M)
     the transposed -+invm update weights; the rest are plain transposes.
@@ -491,7 +488,8 @@ def shake_positions_clustered(sc: ShakeConstraints, cl: ShakeClusters,
 
     def rvec(a3):
         # 3 x (A, M) locals -> 3 x (C, M) constraint diffs x_i - x_j
-        return [jnp.einsum("cam,am->cm", D, comp) for comp in a3]
+        return [jnp.einsum("cam,am->cm", D, comp, precision=MATMUL)
+                for comp in a3]
 
     xo_l = [p[rowsT] for p in xs_old]
     ro = jnp.stack(_minimg_planes(*rvec(xo_l), L))       # (3, C, M)
@@ -561,7 +559,8 @@ def rattle_velocities_clustered(sc: ShakeConstraints, cl: ShakeClusters,
     rowsT = rows.T
 
     def rvec(a3):
-        return [jnp.einsum("cam,am->cm", D, comp) for comp in a3]
+        return [jnp.einsum("cam,am->cm", D, comp, precision=MATMUL)
+                for comp in a3]
 
     r = (r_pre if r_pre is not None else
          jnp.stack(_minimg_planes(*rvec([p[rowsT] for p in xs]), L)))
@@ -612,7 +611,8 @@ def shake_virial_clustered(sc: ShakeConstraints, cl: ShakeClusters,
     rowsT = rows.T
 
     def rvec(a3):
-        return [jnp.einsum("cam,am->cm", D, comp) for comp in a3]
+        return [jnp.einsum("cam,am->cm", D, comp, precision=MATMUL)
+                for comp in a3]
 
     r = jnp.stack(_minimg_planes(*rvec([p[rowsT] for p in xs]), L))
     dv = jnp.stack(rvec([p[rowsT] for p in vs]))

@@ -7,7 +7,7 @@ Host-LAMMPS contract for the in.rhodo deck
   dihedral_style charmm  E = K [1 + cos(n phi - d)]  (+ weighted 1-4 pair)
   improper_style harmonic E = K (chi - chi0)^2
 
-TPU-first design choices:
+Design choices:
 * Dihedral/improper forces come from AUTODIFF of the displacement-vector
   energy (jax.grad over the three min-imaged bond vectors) — exact
   gradients with none of the 40-line hand-derived chain rules of

@@ -2,12 +2,12 @@
 
 Required by examples/in.buck_coul_long:13 (``kspace_style ewald 1e-6``).
 Host-LAMMPS contract (SURVEY.md H5); no fork-specific kernel exists — this is
-a from-scratch TPU formulation.
+a from-scratch formulation.
 
-TPU-first design: the structure factor S(k) = sum_i q_i e^{i k.x_i} is a pair
-of (N, K) <- (N, 3) @ (3, K) **matmuls** followed by cos/sin and a reduction,
-and the force pass is the transposed (N, K) @ (K, 3) matmul — the whole
-solver runs on the MXU, no per-k loops.
+Design: the structure factor S(k) = sum_i q_i e^{i k.x_i} is a pair of
+(N, K) <- (N, 3) @ (3, K) **matmuls** followed by cos/sin and a reduction,
+and the force pass is the transposed (N, K) @ (K, 3) matmul — dense matrix
+products, no per-k loops.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ...core.box import Box
+from ...core.precision import MATMUL
 from .base import (
     KSpaceResult, solve_g_ewald, rms_kspace_ewald, two_charge_force,
 )
@@ -150,7 +151,7 @@ def sk_force_energy_virial(ew: Ewald, c, s, s_re, s_im, q,
     # F_i = qqrd2e * q_i * sum_k 2 ug_k k (sin_i Re - cos_i Im)
     w = 2.0 * ug
     coef = s * s_re_f[None, :] - c * s_im_f[None, :]      # (N, K)
-    f = (coef * w[None, :]) @ kv                          # (N, 3) — MXU
+    f = jnp.matmul(coef * w[None, :], kv, precision=MATMUL)  # (N, 3)
     f = (float(ew.qqrd2e) * q[:, None] * f).astype(acc)
 
     if eflag:
@@ -187,7 +188,7 @@ def _ewald_compute(ew: Ewald, x, q, eflag: bool, vflag: bool) -> KSpaceResult:
     acc = ew.acc_dtype
     kv = jnp.asarray(ew.kvecs, flt)          # (K, 3)
 
-    phase = x @ kv.T                          # (N, K) — MXU
+    phase = jnp.matmul(x, kv.T, precision=MATMUL)   # (N, K)
     c = jnp.cos(phase)
     s = jnp.sin(phase)
     s_re = jnp.sum((q[:, None] * c).astype(acc), axis=0)  # (K,)
@@ -216,20 +217,20 @@ def _ewald_compute_traced(ew: Ewald, x, q, L, eflag: bool,
             jnp.stack([jnp.zeros_like(lx), 1.0 / ly, -yz / (ly * lz)]),
             jnp.stack([jnp.zeros_like(lx), jnp.zeros_like(lx), 1.0 / lz]),
         ]).astype(flt)
-        kv = (2.0 * math.pi) * (m @ hinv)
+        kv = (2.0 * math.pi) * jnp.matmul(m, hinv, precision=MATMUL)
     ksq = jnp.sum(kv * kv, axis=1)
     vol = (L[0] * L[1] * L[2]).astype(flt)
     g2 = ew.g_ewald**2
     ug = (2.0 * math.pi) / vol * jnp.exp(-ksq / (4.0 * g2)) / ksq
 
-    phase = x @ kv.T
+    phase = jnp.matmul(x, kv.T, precision=MATMUL)
     c = jnp.cos(phase)
     s = jnp.sin(phase)
     s_re = jnp.sum((q[:, None] * c).astype(acc), axis=0).astype(flt)
     s_im = jnp.sum((q[:, None] * s).astype(acc), axis=0).astype(flt)
 
     coef = s * s_re[None, :] - c * s_im[None, :]
-    f = (coef * (2.0 * ug)[None, :]) @ kv
+    f = jnp.matmul(coef * (2.0 * ug)[None, :], kv, precision=MATMUL)
     f = (float(ew.qqrd2e) * q[:, None] * f).astype(acc)
 
     sk2 = (s_re * s_re + s_im * s_im)
@@ -274,7 +275,7 @@ def ewald_compute_peratom(ew: Ewald, x, q):
     acc = ew.acc_dtype
     kv = jnp.asarray(ew.kvecs, flt)
     ug = jnp.asarray(ew.ug, flt)
-    phase = x @ kv.T
+    phase = jnp.matmul(x, kv.T, precision=MATMUL)
     c = jnp.cos(phase)
     s = jnp.sin(phase)
     s_re = jnp.sum((q[:, None] * c).astype(acc), axis=0).astype(flt)
@@ -285,7 +286,7 @@ def ewald_compute_peratom(ew: Ewald, x, q):
     V = float(ew.volume)
     qq = float(ew.qqrd2e)
     qa = q.astype(acc)
-    eatom = (qa * (share @ ug).astype(acc)
+    eatom = (qa * jnp.matmul(share, ug, precision=MATMUL).astype(acc)
              - g / math.sqrt(math.pi) * qa * qa
              - math.pi / (2.0 * g * g * V) * qa * ew.qsum) * qq
 
@@ -296,5 +297,6 @@ def ewald_compute_peratom(ew: Ewald, x, q):
     for fac in (1.0 - pref * kx * kx, 1.0 - pref * ky * ky,
                 1.0 - pref * kz * kz, -pref * kx * ky,
                 -pref * kx * kz, -pref * ky * kz):
-        cols.append((qa * (share @ (ug * fac)).astype(acc)) * qq)
+        cols.append((qa * jnp.matmul(share, ug * fac, precision=MATMUL)
+                     .astype(acc)) * qq)
     return eatom.astype(acc), jnp.stack(cols, axis=-1)

@@ -1,6 +1,6 @@
 """PPPM (particle-particle particle-mesh) electrostatics solver.
 
-TPU-native re-design of /root/reference/pppm_intel.{h,cpp} (C7 in
+Re-design of the reference's pppm_intel.{h,cpp} (C7 in
 SURVEY.md §2): particle_map (:325-392), make_rho (:403-527), poisson_ik
 (:811-976) and fieldforce_ik (:540-640), plus the host-LAMMPS setup
 contract (H5: accuracy -> g_ewald/grid/order, B-spline coefficients,
@@ -117,7 +117,7 @@ def _mspline_piece_coeffs(p: int) -> tuple:
 def _horner_piecewise(coeffs, ndeg: int, p: int, x):
     """Evaluate the piecewise polynomial at x: interval j = floor(x),
     t = x - j, Horner over per-degree interval-select chains (constant
-    scalars — pure VPU selects, no gathers).  0 outside [0, p)."""
+    scalars — pure selects, no gathers).  0 outside [0, p)."""
     j = jnp.clip(jnp.floor(x), 0.0, p - 1)
     t = x - j
     ji = j.astype(jnp.int32)
@@ -131,8 +131,8 @@ def _horner_piecewise(coeffs, ndeg: int, p: int, x):
 
 
 def mspline_horner(p: int, x):
-    """M_p by piecewise Horner — measured ~2x cheaper than the Cox-de
-    Boor recursion at order 7 on the VPU; bit-comparable (same
+    """M_p by piecewise Horner — fewer operations than the Cox-de Boor
+    recursion at order 7; bit-comparable (same
     polynomial, different evaluation order)."""
     if p == 1:
         return ((x >= 0) & (x < 1)).astype(x.dtype)

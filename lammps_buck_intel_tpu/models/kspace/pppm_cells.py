@@ -1,16 +1,15 @@
-"""Cell-patch PPPM pipeline — the TPU-fast deposition/gather path.
+"""Cell-patch PPPM pipeline — the scatter-free deposition/gather path.
 
 The generic deposit/gather in pppm.py uses per-atom scatter/gather of
-N * order^3 mesh points; measured on TPU v5e that is 42 ms (deposit) +
-~80 ms (gather) for 32k atoms — scatter/gather bound, like the pair pass
-before the cell-slot layout.  This module removes it the same way:
+N * order^3 mesh points.  This module replaces them with dense work the
+same way the cell-slot layout does for the pair pass:
 
 * The PPPM grid is aligned to the MD cell grid (S grid points per cell and
   axis).  Each cell owns a (P, P, P) patch, P = S + order + margin, that
   covers every stencil its atoms can touch (margin absorbs inter-rebin
   drift, the skin argument).
 * Deposition: per-cell dense B-spline weight planes (cap, P) per axis, then
-  a batched rank-1-sum contraction (two batched matmuls — MXU) into patches;
+  a batched rank-1-sum contraction (two batched matmuls) into patches;
   patches accumulate into the grid through 27 statically-sliced,
   cell-axis-rolled adds — NO scatter anywhere.
 * Field gather: the exact transpose — 27 rolled slices assemble per-cell
@@ -18,7 +17,7 @@ before the cell-slot layout.  This module removes it the same way:
   forces.
 
 This is the make_rho / fieldforce_ik pair of the reference
-(pppm_intel.cpp:403-527, :540-640) in TPU form: the reference's per-thread
+(pppm_intel.cpp:403-527, :540-640) in dense form: the reference's per-thread
 grid privatization becomes patch privatization with a dense reduction.
 """
 from __future__ import annotations
@@ -32,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ...core.box import Box
+from ...core.precision import MATMUL
 from ...neighbor.cell_slots import CellGrid, SlotState
 from .base import KSpaceResult
 from .pppm import PPPM, mspline, mspline_horner
@@ -145,7 +145,7 @@ def _axis_weights(pm: PPPM, ps: PatchSpec, grid: CellGrid, planes, ax: int,
         - px[None, :] + ps.order / 2.0
     # piecewise-Horner evaluation (the reference's rho_coeff form,
     # pppm_intel.cpp:476-488) — ~2x cheaper than the Cox-de Boor
-    # recursion on the VPU, identical polynomial
+    # recursion, identical polynomial
     w = mspline_horner(ps.order, arg)                       # (NS, P_ax)
     if deriv:
         from .pppm import dmspline_horner
@@ -205,9 +205,8 @@ def _expand_axis(a, axis: int, n_c: int, S: int, P: int, lo: int,
     """(… n …) -> (… n_c, P …): per-cell sliding windows along `axis` via
     P static strided slices (each a cheap lax.slice) + one stack.
 
-    Replaces the 27-offset moveaxis/roll assembly that cost ~42 ms per
-    mesh at north-star scale on a v5e — windows over a strided grid are
-    slices, not gathers."""
+    Replaces a 27-offset moveaxis/roll assembly — windows over a strided
+    grid are slices, not gathers."""
     if periodic:
         a = _pad_periodic(a, axis, lo, max(P - lo - S, 0))
         start = 0
@@ -253,8 +252,8 @@ def deposit_rho_cells(pm: PPPM, ps: PatchSpec, grid: CellGrid,
 
     def one_tile(args):
         qxb, wyb, wzb = args
-        wyz = jnp.einsum("tay,taz->tayz", wyb, wzb)
-        return jnp.einsum("tax,tayz->txyz", qxb, wyz)
+        wyz = jnp.einsum("tay,taz->tayz", wyb, wzb, precision=MATMUL)
+        return jnp.einsum("tax,tayz->txyz", qxb, wyz, precision=MATMUL)
 
     pat = jax.lax.map(one_tile, (qx_t, wy_t, wz_t))
     pat = pat.reshape(nt * tile, *ps.P)[:ncell]
@@ -291,9 +290,9 @@ def gather_force_cells(pm: PPPM, ps: PatchSpec, grid: CellGrid,
 
         def one_tile(args):
             wxb, wyb, wzb, eb = args
-            t1 = jnp.einsum("tax,txyz->tayz", wxb, eb)
-            t2 = jnp.einsum("tay,tayz->taz", wyb, t1)
-            return jnp.einsum("taz,taz->ta", wzb, t2)
+            t1 = jnp.einsum("tax,txyz->tayz", wxb, eb, precision=MATMUL)
+            t2 = jnp.einsum("tay,tayz->taz", wyb, t1, precision=MATMUL)
+            return jnp.einsum("taz,taz->ta", wzb, t2, precision=MATMUL)
 
         f = jax.lax.map(one_tile, (wx_t, wy_t, wz_t, ep_t))
         out.append(f.reshape(nt * tile, cap)[:ncell].reshape(-1))
@@ -304,19 +303,17 @@ def gather_force_cells(pm: PPPM, ps: PatchSpec, grid: CellGrid,
 # Column-block transfer: the fast deposit/gather path.
 #
 # The patch pipeline above materializes per-cell (Px, Py, Pz) bricks; the
-# 6-D window/transpose that builds them leaves Pz (~18) as the minor dim,
-# which pads to the 128-lane tile — measured ~20-30 ms per mesh at north-star
-# scale, the dominant k-space cost.  The column scheme removes every
-# small-minor tensor:
+# 6-D window/transpose that builds them leaves Pz (~18) as the minor dim.
+# The column scheme removes every small-minor tensor:
 #
 # * Work is grouped by (cx, cy) cell COLUMN (cells of a column are
 #   contiguous in cell-id order, z-minor).  Per column the z-transfer is a
 #   dense matmul against the RAW mesh z-axis: each slot's order-P_z spline
 #   window is placed at its cell's static z offset inside an (A, nz) row
 #   (block structure by construction), so  t1 = wz_rows @ E_col^T  contracts
-#   nz on the MXU with no expansion of z at all.
+#   nz as a matrix product with no expansion of z at all.
 # * x/y windows are produced by static one-hot expansion MATMULS
-#   (nx -> ncx*Px), a sublane-only transpose (minor dim nz untouched), and
+#   (nx -> ncx*Px), a transpose that leaves the minor dim nz untouched, and
 #   the remaining x/y contraction is one elementwise dot against the
 #   (Px*Py)-flattened weight outer product (minor dim ~361).
 #
@@ -380,8 +377,9 @@ def _expand_xy_cols(mesh, ps: PatchSpec, grid: CellGrid, ax_mats):
     ncx, ncy, _ = grid.nc
     Px, Py = ps.P[0], ps.P[1]
     nz = mesh.shape[-1]
-    e = jnp.einsum("...xyz,yu->...xuz", mesh, jnp.asarray(Ay))
-    e = jnp.einsum("...xuz,xv->...vuz", e, jnp.asarray(Ax))
+    e = jnp.einsum("...xyz,yu->...xuz", mesh, jnp.asarray(Ay),
+                   precision=MATMUL)
+    e = jnp.einsum("...xuz,xv->...vuz", e, jnp.asarray(Ax), precision=MATMUL)
     lead = e.shape[:-3]
     e = e.reshape(*lead, ncx, Px, ncy, Py, nz)
     perm = tuple(range(len(lead))) + tuple(
@@ -399,8 +397,8 @@ def _fold_xy_cols(cols, ps: PatchSpec, grid: CellGrid, ax_mats, nxyz):
     nz = cols.shape[-1]
     e = cols.reshape(ncx, ncy, Px, Py, nz)
     e = jnp.transpose(e, (0, 2, 1, 3, 4)).reshape(ncx * Px, ncy * Py, nz)
-    e = jnp.einsum("vuz,xv->xuz", e, jnp.asarray(Ax))
-    return jnp.einsum("xuz,yu->xyz", e, jnp.asarray(Ay))
+    e = jnp.einsum("vuz,xv->xuz", e, jnp.asarray(Ax), precision=MATMUL)
+    return jnp.einsum("xuz,yu->xyz", e, jnp.asarray(Ay), precision=MATMUL)
 
 
 def _wz_rows(pm: PPPM, ps: PatchSpec, grid: CellGrid, planes,
@@ -462,9 +460,9 @@ def deposit_rho_columns(pm: PPPM, ps: PatchSpec, cs: ColumnSpec,
     def one_tile(args):
         wxb, wyb, wzb, qb = args
         wxy = jnp.einsum("tax,xp->tap", wxb * qb[:, :, None],
-                         jnp.asarray(Kx)) \
-            * jnp.einsum("tay,yp->tap", wyb, jnp.asarray(Ky))
-        return jnp.einsum("tap,taz->tpz", wxy, wzb)
+                         jnp.asarray(Kx), precision=MATMUL) \
+            * jnp.einsum("tay,yp->tap", wyb, jnp.asarray(Ky), precision=MATMUL)
+        return jnp.einsum("tap,taz->tpz", wxy, wzb, precision=MATMUL)
 
     cols = jax.lax.map(one_tile, (wx_t, wy_t, wz_t, q_t))
     cols = cols.reshape(-1, PXY, nz)[:ncol]
@@ -518,13 +516,13 @@ def gather_columns(pm: PPPM, ps: PatchSpec, cs: ColumnSpec, grid: CellGrid,
         def one_tile(args):
             wxb, wyb, dwxb, dwyb, wzb, dwzb, eb = args
             u = eb[:, 0]                                  # (t, PXY, nz)
-            t1 = jnp.einsum("taz,tpz->tap", wzb, u)       # MXU
-            t1d = jnp.einsum("taz,tpz->tap", dwzb, u)
+            t1 = jnp.einsum("taz,tpz->tap", wzb, u, precision=MATMUL)
+            t1d = jnp.einsum("taz,tpz->tap", dwzb, u, precision=MATMUL)
             kxm, kym = jnp.asarray(Kx), jnp.asarray(Ky)
-            xb = jnp.einsum("tax,xp->tap", wxb, kxm)
-            yb = jnp.einsum("tay,yp->tap", wyb, kym)
-            dxb = jnp.einsum("tax,xp->tap", dwxb, kxm)
-            dyb = jnp.einsum("tay,yp->tap", dwyb, kym)
+            xb = jnp.einsum("tax,xp->tap", wxb, kxm, precision=MATMUL)
+            yb = jnp.einsum("tay,yp->tap", wyb, kym, precision=MATMUL)
+            dxb = jnp.einsum("tax,xp->tap", dwxb, kxm, precision=MATMUL)
+            dyb = jnp.einsum("tay,yp->tap", dwyb, kym, precision=MATMUL)
             return (jnp.sum(dxb * yb * t1, -1),
                     jnp.sum(xb * dyb * t1, -1),
                     jnp.sum(xb * yb * t1d, -1))
@@ -536,9 +534,11 @@ def gather_columns(pm: PPPM, ps: PatchSpec, cs: ColumnSpec, grid: CellGrid,
 
         def one_tile(args):
             wxb, wyb, wzb, eb = args
-            t1 = jnp.einsum("taz,tcpz->tcap", wzb, eb)    # MXU
-            wxy = jnp.einsum("tax,xp->tap", wxb, jnp.asarray(Kx)) \
-                * jnp.einsum("tay,yp->tap", wyb, jnp.asarray(Ky))
+            t1 = jnp.einsum("taz,tcpz->tcap", wzb, eb, precision=MATMUL)
+            wxy = jnp.einsum("tax,xp->tap", wxb, jnp.asarray(Kx),
+                             precision=MATMUL) \
+                * jnp.einsum("tay,yp->tap", wyb, jnp.asarray(Ky),
+                             precision=MATMUL)
             return tuple(jnp.sum(wxy * t1[:, c], -1) for c in range(C))
 
         outs = jax.lax.map(one_tile, (wx_t, wy_t, wz_t, e_t))
@@ -584,8 +584,7 @@ def deposit_rho_zblock(pm: PPPM, ps: PatchSpec, cs: ColumnSpec,
     then a static one-hot z fold.
 
     The "columns" engine contracts every slot against FULL-length
-    (nz,) z rows — nz/Pz (~6x) zero-work, measured as the dominant
-    kspace cost at production mesh sizes.  Here stage 1 runs the MXU
+    (nz,) z rows — nz/Pz (~6x) zero-work.  Here stage 1 runs the
     batched matmul at the patch-local z extent
     (batch (col, z-cell): (Pz x cap) @ (cap x PXY)) and stage 2 folds
     the (ncz * Pz) patch rows onto the (nz,) mesh with one static
@@ -618,12 +617,15 @@ def deposit_rho_zblock(pm: PPPM, ps: PatchSpec, cs: ColumnSpec,
         # NOTE: the one-hot spreads FUSE into the following dot; a
         # broadcast-product wxy measured 3 ms SLOWER (fusion loss —
         # same lesson as the pair coef-select reassociation, PERF.md)
-        wxy = jnp.einsum("tax,xp->tap", wxb, jnp.asarray(Kx)) \
-            * jnp.einsum("tay,yp->tap", wyb, jnp.asarray(Ky))
+        wxy = jnp.einsum("tax,xp->tap", wxb, jnp.asarray(Kx),
+                         precision=MATMUL) \
+            * jnp.einsum("tay,yp->tap", wyb, jnp.asarray(Ky), precision=MATMUL)
         wxy = wxy.reshape(-1, ncz, cap, PXY)
-        m = jnp.einsum("tkaw,tkap->tkwp", wzb, wxy)       # (t,ncz,Pz,PXY)
+        # (t,ncz,Pz,PXY)
+        m = jnp.einsum("tkaw,tkap->tkwp", wzb, wxy, precision=MATMUL)
         m = m.reshape(-1, ncz * Pz, PXY)
-        return jnp.einsum("twp,wz->tpz", m, Z)            # (t, PXY, nz)
+        # (t, PXY, nz)
+        return jnp.einsum("twp,wz->tpz", m, Z, precision=MATMUL)
 
     cols = jax.lax.map(one_tile, (wx_t, wy_t, wz_t))
     cols = cols.reshape(-1, PXY, nz)[:ncol]
@@ -635,8 +637,8 @@ def gather_zblock(pm: PPPM, ps: PatchSpec, cs: ColumnSpec, grid: CellGrid,
                   weights=None):
     """Two-stage field interpolation (see deposit_rho_zblock): static
     z-window slices, then batched (cap x PXY) @ (PXY x C*Pz) matmuls
-    with the channel and patch-z axes merged on the lane dim, then a
-    tiny per-slot z-weight reduction on the VPU.
+    with the channel and patch-z axes merged on the minor dim, then a
+    tiny per-slot z-weight reduction.
 
     mode="ik": meshes (Ex, Ey, Ez) -> per-slot field components.
     mode="ad": meshes (U,) -> (-dU/dx, -dU/dy, -dU/dz) via derivative
@@ -694,14 +696,15 @@ def gather_zblock(pm: PPPM, ps: PatchSpec, cs: ColumnSpec, grid: CellGrid,
         def one_tile(args):
             wxb, wyb, dwxb, dwyb, wzb, dwzb, eb = args
             kxm, kym = jnp.asarray(Kx), jnp.asarray(Ky)
-            xb = jnp.einsum("tax,xp->tap", wxb, kxm)
-            yb = jnp.einsum("tay,yp->tap", wyb, kym)
-            dxb = jnp.einsum("tax,xp->tap", dwxb, kxm)
-            dyb = jnp.einsum("tay,yp->tap", dwyb, kym)
+            xb = jnp.einsum("tax,xp->tap", wxb, kxm, precision=MATMUL)
+            yb = jnp.einsum("tay,yp->tap", wyb, kym, precision=MATMUL)
+            dxb = jnp.einsum("tax,xp->tap", dwxb, kxm, precision=MATMUL)
+            dyb = jnp.einsum("tay,yp->tap", dwyb, kym, precision=MATMUL)
             outs = []
             for wxyb in (dxb * yb, xb * dyb, xb * yb):
                 w4 = wxyb.reshape(-1, ncz, cap, PXY)
-                t = jnp.einsum("tkap,tkpw->tkaw", w4, eb)  # (t,ncz,cap,Pz)
+                # (t,ncz,cap,Pz)
+                t = jnp.einsum("tkap,tkpw->tkaw", w4, eb, precision=MATMUL)
                 outs.append(t)
             fx = jnp.sum(outs[0] * wzb, -1)
             fy = jnp.sum(outs[1] * wzb, -1)
@@ -715,11 +718,12 @@ def gather_zblock(pm: PPPM, ps: PatchSpec, cs: ColumnSpec, grid: CellGrid,
 
     def one_tile(args):
         wxb, wyb, wzb, eb = args
-        wxy = jnp.einsum("tax,xp->tap", wxb, jnp.asarray(Kx)) \
-            * jnp.einsum("tay,yp->tap", wyb, jnp.asarray(Ky))
+        wxy = jnp.einsum("tax,xp->tap", wxb, jnp.asarray(Kx),
+                         precision=MATMUL) \
+            * jnp.einsum("tay,yp->tap", wyb, jnp.asarray(Ky), precision=MATMUL)
         wxy = wxy.reshape(-1, ncz, cap, PXY)
-        # (t, ncz, cap, C*Pz): ONE batched matmul, K = PXY on the MXU
-        t = jnp.einsum("tkap,tkpw->tkaw", wxy, eb)
+        # (t, ncz, cap, C*Pz): ONE batched matmul, K = PXY
+        t = jnp.einsum("tkap,tkpw->tkaw", wxy, eb, precision=MATMUL)
         t = t.reshape(-1, ncz, cap, C, Pz)
         out = jnp.sum(t * wzb[:, :, :, None, :], -1)      # (t,ncz,cap,C)
         return tuple(out[..., c].reshape(-1, ncz * cap) for c in range(C))
@@ -900,9 +904,9 @@ class CellPPPM:
 
             def one_tile(args):
                 wxb, wyb, wzb, eb = args
-                t1 = jnp.einsum("tax,txyz->tayz", wxb, eb)
-                t2 = jnp.einsum("tay,tayz->taz", wyb, t1)
-                return jnp.einsum("taz,taz->ta", wzb, t2)
+                t1 = jnp.einsum("tax,txyz->tayz", wxb, eb, precision=MATMUL)
+                t2 = jnp.einsum("tay,tayz->taz", wyb, t1, precision=MATMUL)
+                return jnp.einsum("taz,taz->ta", wzb, t2, precision=MATMUL)
 
             f = jax.lax.map(one_tile, (wx_t, wy_t, wz_t, ep_t))
             out.append(f.reshape(nt * tile, cap)[:ncell].reshape(-1))

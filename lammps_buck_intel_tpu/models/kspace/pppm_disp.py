@@ -1,6 +1,6 @@
 """Dispersion PPPM (``pppm/disp``) — long-range r^-6 mesh solver.
 
-TPU-native re-design of /root/reference/pppm_disp_intel.{h,cpp} (C8 in
+Re-design of the reference's pppm_disp_intel.{h,cpp} (C8 in
 SURVEY.md §2).  All three mixing pipelines are implemented through ONE
 channel formulation:
 
@@ -47,6 +47,7 @@ import numpy as np
 from scipy.special import erfc as sp_erfc
 
 from ...core.box import Box
+from ...core.precision import MATMUL
 from .base import KSpaceResult
 from . import pppm as _pppm
 
@@ -305,13 +306,16 @@ def _disp_compute_multi(pm: PPPMDisp, x, a_atoms, P, eflag: bool,
     ])
     S = jnp.fft.rfftn(meshes.astype(acc), axes=(1, 2, 3))  # (nch, ...)
     G = jnp.asarray(pm.greensfn[..., :nzh], acc)
-    chi = jnp.einsum("cd,dxyz->cxyz", jnp.asarray(Pm, acc), S)
+    chi = jnp.einsum("cd,dxyz->cxyz", jnp.asarray(Pm, acc), S,
+                     precision=MATMUL)
 
     asum = jnp.sum(a_atoms.astype(acc), axis=1)            # (nch,)
-    e0 = (0.5 / V) * pm.w0 * (asum @ jnp.asarray(Pm, acc) @ asum)
+    e0 = (0.5 / V) * pm.w0 * jnp.matmul(
+        jnp.matmul(asum, jnp.asarray(Pm, acc), precision=MATMUL), asum,
+        precision=MATMUL)
     c6_self = jnp.einsum(
         "cn,cd,dn->n", a_atoms.astype(acc), jnp.asarray(Pm, acc),
-        a_atoms.astype(acc))
+        a_atoms.astype(acc), precision=MATMUL)
     e_self = pm.g_ewald_6**6 / 12.0 * jnp.sum(c6_self)
 
     from .pppm_cells import _half_weights
@@ -451,7 +455,8 @@ def _disp_peratom_multi(pm: PPPMDisp, x, a_atoms, P):
     ])
     S = jnp.fft.rfftn(meshes.astype(acc), axes=(1, 2, 3))
     G = jnp.asarray(pm.greensfn[..., :nzh], acc)
-    chi = jnp.einsum("cd,dxyz->cxyz", jnp.asarray(Pm, acc), S)
+    chi = jnp.einsum("cd,dxyz->cxyz", jnp.asarray(Pm, acc), S,
+                     precision=MATMUL)
     phi = G[None] * chi
 
     wx_ = _pppm._particle_weights(shim, x)
@@ -471,9 +476,10 @@ def _disp_peratom_multi(pm: PPPMDisp, x, a_atoms, P):
     scale = ngrid / V
     asum = jnp.sum(a_atoms.astype(acc), axis=1)
     a_P_asum = jnp.einsum("cn,cd,d->n", a_atoms.astype(acc),
-                          jnp.asarray(Pm, acc), asum)
+                          jnp.asarray(Pm, acc), asum, precision=MATMUL)
     c6_self = jnp.einsum("cn,cd,dn->n", a_atoms.astype(acc),
-                         jnp.asarray(Pm, acc), a_atoms.astype(acc))
+                         jnp.asarray(Pm, acc), a_atoms.astype(acc),
+                         precision=MATMUL)
 
     eatom = jnp.zeros((x.shape[0],), acc)
     for ci in range(nch):

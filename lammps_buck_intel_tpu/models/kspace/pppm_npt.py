@@ -7,7 +7,7 @@ pppm_disp_intel.cpp:115-554): grid size, order and g_ewald stay fixed
 from ``init()``; the box-dependent tables — Green's function, fkx/fky/
 fkz, volume, self-energy background — are rebuilt at reneighbor cadence.
 
-TPU-native equivalent: rebuild those tables *inside the trace* from the
+Equivalent here: rebuild those tables *inside the trace* from the
 traced box lengths, once per neighbor-cadence block (not per step).  The
 alias sums of the Hockney-Eastwood influence function factor into
 box-INDEPENDENT B-spline transforms (sinc powers live in grid-index
@@ -30,8 +30,8 @@ Solvers:
 
 All traced tables are built in the precision policy's accumulation dtype
 (the reference's precision contract, pair_buck_intel.cpp:48-62): f64 on
-x64 CPU runs, f32 on TPU — never a literal float64 that would silently
-truncate on hardware.
+x64 runs, f32 in single precision — never a literal float64 that would
+silently truncate without x64.
 """
 from __future__ import annotations
 
@@ -40,6 +40,7 @@ import math
 import jax.numpy as jnp
 import numpy as np
 
+from ...core.precision import MATMUL
 from .base import KSpaceResult, BoundKSpace, CombinedKSpace
 from .pppm import (
     PPPM, _fold_idx, _np_axis_A, bspline_weights, stencil_offsets,
@@ -104,12 +105,14 @@ def _sf_refit_traced(G, L, grid, statics, acc):
         t0, t1 = [a for a in range(3) if a != ax]
         g1 = jnp.moveaxis(G, ax, 0)
         g1 = jnp.tensordot(g1, jnp.asarray(mean2[t1], acc),
-                           axes=[[2], [0]])
+                           axes=[[2], [0]], precision=MATMUL)
         g1 = jnp.tensordot(g1, jnp.asarray(mean2[t0], acc),
-                           axes=[[1], [0]])                   # (n_ax,)
+                           axes=[[1], [0]], precision=MATMUL)   # (n_ax,)
         h_ax = L[ax] / grid[ax]
-        e_s = -(jnp.asarray(selfterm[ax], acc) @ g1) / (V * h_ax)  # (S,)
-        sf.append((2.0 / nsamp) * (jnp.asarray(basis, acc).T @ e_s))
+        e_s = -jnp.matmul(jnp.asarray(selfterm[ax], acc), g1,
+                          precision=MATMUL) / (V * h_ax)  # (S,)
+        sf.append((2.0 / nsamp) * jnp.matmul(
+            jnp.asarray(basis, acc).T, e_s, precision=MATMUL))
     return jnp.stack(sf)                                      # (3, J)
 
 
@@ -557,12 +560,13 @@ class TracedPPPMDisp:
 
         S = jnp.fft.rfftn(meshes.astype(acc), axes=(1, 2, 3))
         G = kc["G6"].astype(acc)[..., :nzh]
-        chi = jnp.einsum("cd,dxyz->cxyz", Pm, S)
+        chi = jnp.einsum("cd,dxyz->cxyz", Pm, S, precision=MATMUL)
 
         asum = jnp.sum(a_atoms.astype(acc), axis=1)
-        e0 = (0.5 / V) * self.w0 * (asum @ Pm @ asum)
+        e0 = (0.5 / V) * self.w0 * jnp.matmul(
+            jnp.matmul(asum, Pm, precision=MATMUL), asum, precision=MATMUL)
         c6_self = jnp.einsum("cn,cd,dn->n", a_atoms.astype(acc), Pm,
-                             a_atoms.astype(acc))
+                             a_atoms.astype(acc), precision=MATMUL)
         e_self = self.beta**6 / 12.0 * jnp.sum(c6_self)
 
         from .pppm_cells import _half_weights

@@ -2,7 +2,7 @@
 
 Distributes the CellPPPM pipeline (pppm_cells.py) over a 1-D device mesh
 whose axis shards the cell grid's x direction (parallel/slab.py owns the
-atom side).  This is the TPU-native analog of the reference's distributed
+atom side).  This is the device-mesh analog of the reference's distributed
 mesh machinery (SURVEY.md H4):
 
 * mesh ghost-cell reduction  (``cg->reverse_comm(REVERSE_RHO)``,
@@ -30,6 +30,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ...core.precision import MATMUL
 from ...neighbor.cell_slots import CellGrid, SlotState
 from .pppm import PPPM
 from .pppm_cells import (
@@ -243,8 +244,8 @@ class SlabCellPPPM:
 
         def dep_tile(args):
             qxb, wyb, wzb = args
-            wyz = jnp.einsum("tay,taz->tayz", wyb, wzb)
-            return jnp.einsum("tax,tayz->txyz", qxb, wyz)
+            wyz = jnp.einsum("tay,taz->tayz", wyb, wzb, precision=MATMUL)
+            return jnp.einsum("tax,tayz->txyz", qxb, wyz, precision=MATMUL)
 
         pat = jax.lax.map(dep_tile, (qx_t, wy_t, wz_t))
         pat = pat.reshape(nt * tile, *ps.P)[:ncell]
@@ -312,9 +313,9 @@ class SlabCellPPPM:
 
         def gat_tile(args):
             wxb, wyb, wzb, eb = args
-            t1 = jnp.einsum("tax,txyz->tayz", wxb, eb)
-            t2 = jnp.einsum("tay,tayz->taz", wyb, t1)
-            return jnp.einsum("taz,taz->ta", wzb, t2)
+            t1 = jnp.einsum("tax,txyz->tayz", wxb, eb, precision=MATMUL)
+            t2 = jnp.einsum("tay,tayz->taz", wyb, t1, precision=MATMUL)
+            return jnp.einsum("taz,taz->ta", wzb, t2, precision=MATMUL)
 
         out = []
         if pm.diff == "ad":
@@ -441,8 +442,8 @@ class SlabCellPPPMDisp(SlabCellPPPM):
 
         def dep_tile(args):
             axb, wyb, wzb = args
-            wyz = jnp.einsum("tay,taz->tayz", wyb, wzb)
-            return jnp.einsum("tax,tayz->txyz", axb, wyz)
+            wyz = jnp.einsum("tay,taz->tayz", wyb, wzb, precision=MATMUL)
+            return jnp.einsum("tax,tayz->txyz", axb, wyz, precision=MATMUL)
 
         # ---- per-channel deposition (make_rho_a analog); the overhang
         # halo and the pencil FFT run ONCE on the stacked channel axis,
@@ -472,7 +473,7 @@ class SlabCellPPPMDisp(SlabCellPPPM):
         S = fft3_slab(mesh_c.astype(acc), axis, D, batch_dims=1)
         G = kc["G"].astype(acc)
         Pc = jnp.asarray(self.Pm, acc)
-        chi = jnp.einsum("cd,dxyz->cxyz", Pc, S)
+        chi = jnp.einsum("cd,dxyz->cxyz", Pc, S, precision=MATMUL)
 
         def allsum(v):
             return jax.lax.psum(v, axis) if D > 1 else v
@@ -513,9 +514,9 @@ class SlabCellPPPMDisp(SlabCellPPPM):
 
         def gat_tile(args):
             wxb, wyb, wzb, eb = args
-            t1 = jnp.einsum("tax,tcxyz->tcayz", wxb, eb)
-            t2 = jnp.einsum("tay,tcayz->tcaz", wyb, t1)
-            return jnp.einsum("taz,tcaz->tca", wzb, t2)
+            t1 = jnp.einsum("tax,tcxyz->tcayz", wxb, eb, precision=MATMUL)
+            t2 = jnp.einsum("tay,tcayz->tcaz", wyb, t1, precision=MATMUL)
+            return jnp.einsum("taz,tcaz->tca", wzb, t2, precision=MATMUL)
 
         phi = G[None] * chi                          # (nch, nx, ny_loc, nzh)
         a_cs = a_slots.astype(acc)                   # (nch, ns_loc)
@@ -539,7 +540,8 @@ class SlabCellPPPMDisp(SlabCellPPPM):
             f = jax.lax.map(gat_tile, (wx_t, wy_t, wz_t, ep_t))
             f = jnp.moveaxis(f, 2, 0).reshape(        # (nch, nt*tile, cap)
                 self.nch, nt * tile, cap)[:, :ncell].reshape(self.nch, -1)
-            fout.append(jnp.einsum("cs,cs->s", f.astype(acc), a_cs))
+            fout.append(jnp.einsum("cs,cs->s", f.astype(acc), a_cs,
+                                   precision=MATMUL))
         return fout[0], fout[1], fout[2], elong, virial
 
 
@@ -726,7 +728,7 @@ class ShardedEwald:
         xs = jnp.stack([state.x, state.y, state.z], -1)
         q = state.q
 
-        phase = xs @ kv.T                          # (NS_loc, K) — MXU
+        phase = jnp.matmul(xs, kv.T, precision=MATMUL)  # (NS_loc, K)
         c = jnp.cos(phase)
         s = jnp.sin(phase)
         s_re = jnp.sum((q[:, None] * c).astype(acc), axis=0)
@@ -932,8 +934,8 @@ class Pencil2DCellPPPM:
 
         def dep_tile(args):
             qxb, wyb, wzb = args
-            wyz = jnp.einsum("tay,taz->tayz", wyb, wzb)
-            return jnp.einsum("tax,tayz->txyz", qxb, wyz)
+            wyz = jnp.einsum("tay,taz->tayz", wyb, wzb, precision=MATMUL)
+            return jnp.einsum("tax,tayz->txyz", qxb, wyz, precision=MATMUL)
 
         pat = jax.lax.map(dep_tile, (qx_t, wy_t, wz_t))
         pat = pat.reshape(nt * tile, *ps.P)[:ncell]
@@ -1026,9 +1028,9 @@ class Pencil2DCellPPPM:
 
             def gat_tile(args):
                 wxb, wyb, wzb, eb = args
-                t1 = jnp.einsum("tax,txyz->tayz", wxb, eb)
-                t2 = jnp.einsum("tay,tayz->taz", wyb, t1)
-                return jnp.einsum("taz,taz->ta", wzb, t2)
+                t1 = jnp.einsum("tax,txyz->tayz", wxb, eb, precision=MATMUL)
+                t2 = jnp.einsum("tay,tayz->taz", wyb, t1, precision=MATMUL)
+                return jnp.einsum("taz,taz->ta", wzb, t2, precision=MATMUL)
 
             f = jax.lax.map(gat_tile, (wx_t, wy_t, wz_t, ep_t))
             out.append(f.reshape(nt * tile, cap)[:ncell].reshape(-1))

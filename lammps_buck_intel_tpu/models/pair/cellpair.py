@@ -1,10 +1,10 @@
 """Dense cell-pair force kernel over the sorted slot layout.
 
-The TPU production hot path (see neighbor/cell_slots.py): for every cell,
+The production hot path (see neighbor/cell_slots.py): for every cell,
 interactions against the 27 neighbor cells are evaluated as dense masked
 (cap, 27*cap) tiles — zero per-pair random access.  This is the SIMD
-j-loop of the reference (pair_buck_intel.cpp:236-275) re-shaped for a
-8x128-lane vector unit, with INTEL_VMASK-style ``where`` masks doing the
+j-loop of the reference (pair_buck_intel.cpp:236-275) re-shaped into wide
+elementwise tiles, with INTEL_VMASK-style ``where`` masks doing the
 cutoff/validity work.  Physics comes from the same ``pair_terms`` used by
 the neighbor-list driver, so both paths share one validated formula set.
 
@@ -80,8 +80,8 @@ def compute_cell_tiles(
     has_special = (slot_special_idx is not None
                    and slot_special_idx.shape[1] > 0)
 
-    # tile over cells: bounds the (tile, cap, 27*cap) temporaries so big
-    # systems fit HBM (a monolithic 288k-atom energy pass needs >18 GB)
+    # tile over cells: bounds the memory of the (tile, cap, 27*cap)
+    # temporaries (a monolithic 288k-atom energy pass needs >18 GB)
     tile = _cell_tile_size(cap, ncell)
     nt = -(-ncell // tile)
     pad = nt * tile - ncell
@@ -346,9 +346,8 @@ def compute_cell_tiles_newton(
     shift_cart = np.einsum("ckb,ab->cka", shifts, h_cart)
 
     # temporaries are (tile, cap, K*cap): half the full-stencil footprint.
-    # Budget sized for HBM headroom, not VMEM — bigger tiles mean fewer
-    # sequential lax.map dispatches (82 -> 28 on the north star measured
-    # -0.3 ms/step of launch overhead)
+    # The budget bounds device memory; bigger tiles mean fewer sequential
+    # lax.map iterations
     tile = _cell_tile_size(cap, ncell, budget_bytes=5.4e8, stencil=K)
     nt = -(-ncell // tile)
     pad = nt * tile - ncell

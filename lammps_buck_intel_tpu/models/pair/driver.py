@@ -1,20 +1,20 @@
 """Pair force pass: gather -> per-pair terms -> row-sum.
 
-The TPU re-design of the reference's ``eval`` hot loop
+The re-design of the reference's ``eval`` hot loop
 (/root/reference/pair_buck_intel.cpp:127-365): with a full neighbor list the
 scatter to j (``f[j] -=``, :290-294) disappears; forces are a pure gather +
 masked row reduction, energies/virial use the 0.5 double-count convention
 (:296-301).  Per-thread force slabs and the add_result_array reduction
 (SURVEY.md H1) are unnecessary — XLA owns the parallelism.
 
-Layout rules (measured on TPU v5e):
-* All hot (N, K) pair arrays are **component SoA** — an (N, K, 3) array has
-  its minor dim padded to the 128-lane tile, a 42x waste that cost 400x in
-  practice.  The reference's AoSoA repack (intel_buffers.h:185-203) becomes
-  "three (N, K) planes" here.
+Layout rules:
+* All hot (N, K) pair arrays are **component SoA**: three (N, K) planes
+  instead of one (N, K, 3) array, which keeps every elementwise pass on a
+  wide minor axis.  The reference's AoSoA repack (intel_buffers.h:185-203)
+  becomes "three (N, K) planes" here.
 * Per-pair coefficients come from an unrolled select chain over the flat
-  (T*T) type-pair table when T is small (every deck: T <= 3) — gathers from
-  tiny tables lower poorly on TPU.  Large T falls back to a real gather.
+  (T*T) type-pair table when T is small (every deck: T <= 3) instead of a
+  gather from a tiny table.  Large T falls back to a real gather.
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ class PairResult(NamedTuple):
 def _select_small(table_1d: np.ndarray, key, shape, dtype):
     """Unrolled select: out[p] = table_1d[key[p]] for a tiny host table.
 
-    Pure VPU selects over baked python-float constants — avoids both
+    Pure selects over baked python-float constants — avoids both
     tiny-table gathers and device-scalar broadcasts (see PairStyle note).
     """
     vals = [float(v) for v in np.asarray(table_1d)]

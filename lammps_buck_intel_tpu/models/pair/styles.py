@@ -15,10 +15,10 @@ Where the reference specializes its hot loop with template ints
 pair_lj_long_coul_long_intel.cpp:117-419), we use a static ``PairConfig``:
 each (coul, disp, vdw) combination traces its own XLA program under jit.
 Cutoff branches become ``jnp.where`` masks over the padded neighbor tile —
-the INTEL_VMASK idiom (pair_buck_intel.cpp:257-268) is the natural TPU form.
+the INTEL_VMASK idiom (pair_buck_intel.cpp:257-268) in array form.
 The erfc bit-cast table lookup (pair_buck_coul_long_intel.cpp:317-339) is
-deliberately NOT reproduced: on the VPU the 5-term polynomial is cheaper
-than a gather.
+deliberately NOT reproduced: the 5-term polynomial is pure elementwise
+work, where the table would be a gather.
 """
 from __future__ import annotations
 
@@ -62,9 +62,8 @@ class PairStyle:
     pair_buck_coul_long_intel.cpp:507-515).
 
     All tables/scalars are **host numpy** and are baked into the compiled
-    program as literal constants — the TPU analog of the reference's
-    compile-time template specialization, and a hard performance requirement
-    (device-scalar broadcasts poison XLA TPU codegen; see core/box.py note).
+    program as literal constants — the analog of the reference's
+    compile-time template specialization (see core/box.py note).
     """
 
     cfg: PairConfig
@@ -303,8 +302,8 @@ def pair_terms(style: PairStyle, rsq, coef, qi, qj, f_lj, f_coul, *, eflag: bool
     rsq: (..., ) squared distances (garbage at masked slots — caller masks).
     coef: dict of per-pair coefficient planes (see COEF_NAMES), each
       broadcastable against rsq — scalars for single-type systems, (N, K)
-      planes otherwise (component-SoA, never a packed (..., NCOEF) array:
-      minor-dim 8 would pad to the 128 lane tile).
+      planes otherwise (component-SoA, never a packed (..., NCOEF) array
+      with a minor dim of 8).
     f_lj/f_coul: (...,) special-bond factors (1.0 for plain pairs).
     Returns (fscalar, evdwl, ecoul) with fscalar = (F_vdw + F_coul)/r * 1/r,
     i.e. F_i += fscalar * (x_i - x_j), matching the reference's

@@ -1,19 +1,15 @@
-"""Sorted cell-slot atom layout — the TPU-native hot-path data structure.
+"""Sorted cell-slot atom layout — the hot-path data structure.
 
-Motivation (measured on TPU v5e through honest chained timing): a single
-(32k, 80) random gather costs ~19 ms (7.5 ns/element, scalar-bound), while
-the entire pair physics is ~1 ms of VPU work.  Neighbor-list MD is therefore
-gather-bound on TPU.  This module removes per-step gathers entirely:
+Motivation: neighbor-list MD does a random gather of every neighbor's
+coordinates every step.  This module removes per-step gathers entirely:
 
 * Atoms live in a fixed (ncell * cap) slot array, grouped by cell, padded
   with sentinel slots.  All per-step addressing is REGULAR: i-atoms are
   contiguous (cell, slot) blocks; j-candidates are whole rows of the 27
-  neighbor cells (a static row-gather).  Measured: 2.1 ms/step for the
-  32k-atom buck melt vs 83 ms for the neighbor-list form — 40x.
-* Gathers/scatters happen only at REBIN time (every ``neigh_every`` steps),
-  amortised to ~0.1 ms/step.
+  neighbor cells (a static row-gather).
+* Gathers/scatters happen only at REBIN time (every ``neigh_every`` steps).
 
-This is the TPU answer to the reference's dual machinery of binned neighbor
+This replaces the reference's dual machinery of binned neighbor
 lists + AoSoA repacking (SURVEY.md H2 + C1): the bins ARE the layout.
 LAMMPS' own atom sorting (sort every N steps into bins) is the same idea;
 here it is load-bearing for correctness of the dense kernel too.
@@ -304,10 +300,10 @@ _MOVE_FIELDS = ("x", "y", "z", "vx", "vy", "vz", "fx", "fy", "fz",
 def move_capacity(grid: CellGrid) -> int:
     """Static mover-buffer size for rebin_incremental: few % of atoms
     change cell per rebin under the skin/cadence bound.  Every mover
-    costs ~2 scalar-bound scatter/gather element-ops x 15 planes, so the
-    buffer is sized tight but with headroom (1/16 of slots; the 259k
-    bench measures movers ~4% of slots at cadence 10 on z-refined
-    cells) — overflow falls back to the full sort."""
+    costs ~2 scatter/gather element-ops x 15 planes, so the buffer is
+    sized tight but with headroom (1/16 of slots; the 259k silica deck
+    moves ~4% of slots at cadence 10 on z-refined cells) — overflow
+    falls back to the full sort."""
     return min(grid.nslots, _round_up(max(2048, grid.nslots // 16), 512))
 
 
@@ -315,8 +311,7 @@ def rebin_incremental(grid: CellGrid, box: Box, state: SlotState,
                       bufcap: Optional[int] = None) -> SlotState:
     """Counting-sort rebin: move ONLY the entries whose cell changed.
 
-    The full rebin's argsort is a bitonic sort over every slot
-    (~log^2(NS) passes — 180 ms at 475k slots on a v5e); but between
+    The full rebin's argsort sorts every slot; but between
     rebins only a few % of atoms cross a cell face.  This path extracts
     the movers through a fixed-capacity buffer (one small sort + a few
     NS-length elementwise/scatter passes), places them into per-cell free
@@ -366,8 +361,7 @@ def rebin_incremental(grid: CellGrid, box: Box, state: SlotState,
 
         # 3) per-cell free-slot table from the vacated state: a dense
         # (ncell, cap) minor-axis sort (free positions first, cap
-        # sentinels after) — NOT an (NS,)-sized scatter pair, which was
-        # scalar-bound and dominated the whole rebin (measured)
+        # sentinels after) — NOT an (NS,)-sized scatter pair
         free = (st.aid >= n).reshape(ncell, cap)
         free_count = jnp.sum(free.astype(jnp.int32), axis=1)
         slot_in_cell = jnp.broadcast_to(

@@ -1,11 +1,11 @@
-"""Fixed-shape neighbor lists — TPU-native replacement for LAMMPS binned lists.
+"""Fixed-shape neighbor lists — replacement for LAMMPS binned lists.
 
 Reference contract (SURVEY.md H2): binned O(N) half lists with skin distance,
 rebuild triggers, and special-bond bits packed in index high bits, consumed at
 /root/reference/pair_buck_intel.cpp:142-144,246-247,279-280 and sized by
 ``get_max_nbors`` (/root/reference/intel_buffers.h:124-128).
 
-TPU-first redesign (SURVEY.md §7.1):
+Redesign (SURVEY.md §7.1):
 
 * **Full** lists (every pair stored from both sides).  The force pass becomes
   a pure gather + row-sum — no ``f[j] -=`` scatter, no Newton half-list

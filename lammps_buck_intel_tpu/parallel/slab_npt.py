@@ -5,7 +5,7 @@ every other fix (/root/reference/examples/in.rhodo:18-19 is the NPT deck;
 the pppm_intel.cpp:185,219-228 comm machinery exists so full decks scale).
 This engine closes the last deck-visible fix that was single-chip-only.
 
-TPU-native design (composition of two existing contracts):
+Design (composition of two existing contracts):
 
 * the SLAB decomposition (parallel/slab.py) is FRACTIONAL: cell walls sit
   at fixed fractions of the box, so a homogeneous MTK dilation moves every
@@ -317,7 +317,7 @@ class SlabNPTSimulation(SlabCellPairSimulation):
     def _mv2_trans_rigid(self, bs):
         """(3,) per-axis sum_b M_b V_a^2 (energy units) — replicated."""
         acc = self.precision.acc
-        M = jnp.asarray(self.rigid.mtotal, np.float64).astype(acc)
+        M = jnp.asarray(np.asarray(self.rigid.mtotal), acc)
         return jnp.stack([
             jnp.sum(M * bs.V[:, a].astype(acc) * bs.V[:, a].astype(acc))
             for a in range(3)]) * self.units.mvv2e

@@ -10,7 +10,7 @@ CLI:  python -m lammps_buck_intel_tpu.run examples/decks/buck.yaml
 from __future__ import annotations
 
 import argparse
-import os
+import json
 import sys
 import time
 
@@ -26,7 +26,7 @@ def _npt_traced_kspace(kspace, box, q, ps, ks, u, prec, style):
     """Make the deck's kspace solver variable-cell capable for ``fix npt``.
 
     kspace_style pppm / pppm/disp under a variable cell: host LAMMPS
-    re-runs the solver's setup() on box change; the TPU equivalent
+    re-runs the solver's setup() on box change; the equivalent here
     rebuilds the box-baked tables from the TRACED box at reneighbor
     cadence (models/kspace/pppm_npt.py TracedPPPM / TracedPPPMDisp; ik
     AND ad differentiation, slab-corrected coulomb, every mixing rule).
@@ -661,11 +661,6 @@ def build_simulation(cfg: dict, prefer_device: bool = True):
             # stay single-device for now
             raise NotImplementedError(
                 "slab engine: triclinic box with fix npt / rigid")
-        if cfg.get("pair_kernel"):
-            raise NotImplementedError(
-                "slab engine: pair_kernel selection (the slab pair pass "
-                "is the halo-tile XLA kernel; the Pallas variants were "
-                "pruned in r5 — PERF.md)")
         if prec.compensated:
             raise NotImplementedError(
                 "slab engine: compensated precision (use single/double)")
@@ -877,11 +872,6 @@ def build_simulation(cfg: dict, prefer_device: bool = True):
             # manual slot capacity (the overflow error's escape hatch —
             # systems that densify locally outgrow the occupancy-sized cap)
             kw2["cap"] = int(cfg["cap"])
-        if cfg.get("pair_kernel"):
-            # "xla" only (the Pallas variants were pruned in r5 after
-            # losing every hardware A/B — PERF.md); unknown values stay
-            # loud in the engine constructor
-            kw2["pair_kernel"] = str(cfg["pair_kernel"])
         if use_cellpppm or use_celldisp:
             kw2["kspace"] = None
         try:
@@ -891,8 +881,8 @@ def build_simulation(cfg: dict, prefer_device: bool = True):
                 exclude_intra=exclude_intra, **kw2)
         except ValueError as e:
             # ONLY the box-too-small geometry case falls through to the
-            # nlist engine; config errors (unknown pair_kernel, missing
-            # molecule ids) must stay loud (review finding r3)
+            # nlist engine; config errors (missing molecule ids) must
+            # stay loud (review finding r3)
             if "box too small" not in str(e):
                 raise
             sim = None
@@ -1067,34 +1057,25 @@ def main(argv=None):
                     help="print the translated deck config and exit")
     args = ap.parse_args(argv)
 
+    from .io.deck import load_deck
     from .io.lammps_input import is_lammps_input, translate
 
+    cfg = (translate(args.deck) if is_lammps_input(args.deck)
+           else load_deck(args.deck))
     if args.translate_only:
-        import yaml
-
-        cfg = (translate(args.deck) if is_lammps_input(args.deck)
-               else yaml.safe_load(open(args.deck)))
-        print(yaml.safe_dump(cfg, sort_keys=False))
+        print(json.dumps(cfg, indent=1))
         return
 
     import jax
 
+    from .core.precision import needs_x64
+    from .utils.compile_cache import enable_compile_cache
+
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.jax_cache"))
-
-    import yaml
-
-    if is_lammps_input(args.deck):
-        cfg = translate(args.deck)
-    else:
-        with open(args.deck) as f:
-            cfg = yaml.safe_load(f)
-    if cfg.get("precision") == "double" or (
-            cfg.get("precision") == "mixed" and args.cpu):
-        # literal f64 needs x64 (CPU only); `mixed` on TPU resolves to the
-        # compensated two-float mode instead (core/precision.py)
+    enable_compile_cache()
+    if needs_x64(cfg.get("precision", "single")):
+        # f64 accumulation (mixed) or compute (double), on every backend
         jax.config.update("jax_enable_x64", True)
     if args.steps is not None:
         cfg["run"] = args.steps

@@ -6,7 +6,7 @@
 // exposes one core); node-level numbers extrapolate by core count with
 // the assumption documented in BASELINE.md.
 //
-// Algorithm (mirrors stock LAMMPS / the reference, not the TPU engine):
+// Algorithm (mirrors stock LAMMPS / the reference, not the JAX engine):
 //   * binned half neighbor lists with Newton's 3rd law, skin 1.0,
 //     rebuilt every 10 steps
 //   * buck/coul/long pair kernel: Buckingham exp-6 + Ewald real-space

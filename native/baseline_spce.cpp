@@ -6,7 +6,7 @@
 // Single-threaded (this container exposes one core); node-level numbers
 // extrapolate by core count, documented in BASELINE.md.
 //
-// Algorithm (mirrors stock LAMMPS semantics, not the TPU engine):
+// Algorithm (mirrors stock LAMMPS semantics, not the JAX engine):
 //   * binned half neighbor lists with Newton, special-bond pairs kept
 //     with their scale factors (subtractive coul/long handling)
 //   * lj/cut/coul/long pair kernel: 12-6 LJ + Ewald real-space erfc via

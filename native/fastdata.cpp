@@ -1,6 +1,6 @@
 // fastdata — native LAMMPS data-file section parser.
 //
-// The runtime around the TPU compute path stays native where the
+// The runtime around the device compute path stays native where the
 // reference's is (its whole stack is C++): this is the data-loader piece.
 // Python (io/data_reader.py) parses the small header, allocates numpy
 // buffers, and hands them here to fill; large Atoms/Velocities/Bonds

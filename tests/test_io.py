@@ -1,11 +1,12 @@
 import numpy as np
+import pytest
 
 from lammps_buck_intel_tpu.io import read_data, lattice, velocity
 from lammps_buck_intel_tpu.core import get_units
 
 
-def test_read_data_charge(reference_dir):
-    d = read_data(f"{reference_dir}/examples/data.aC")
+def test_read_data_charge(examples_dir):
+    d = read_data(f"{examples_dir}/data.aC")
     assert d.n_atoms == 1200
     assert d.n_atom_types == 2
     # charge neutral silica: 400 Si (q=2.96653) + 800 O
@@ -49,8 +50,8 @@ def test_fcc_lattice():
     np.testing.assert_allclose(len(x) / vol, 0.8442, rtol=1e-12)
 
 
-def test_replicate(reference_dir):
-    d = read_data(f"{reference_dir}/examples/data.aC")
+def test_replicate(examples_dir):
+    d = read_data(f"{examples_dir}/data.aC")
     x, lo, hi, per_atom, *_ = lattice.replicate(
         d.x, d.box_lo, d.box_hi, (4, 4, 4),
         per_atom={"type": d.type, "q": d.q},
@@ -153,26 +154,27 @@ def test_translator_emits_lammps_rng(reference_dir):
     assert "loop" not in v
 
 
-def test_native_reader_matches_python(reference_dir):
+@pytest.mark.parametrize("name", ["data.aC", "data.spce",
+                                  "equilibrated_data.hexane"])
+def test_native_reader_matches_python(name, reference_dir, examples_dir):
     """The C++ fastdata parser and the Python parser must agree exactly."""
     from lammps_buck_intel_tpu.io.fastdata import _load
 
     if _load() is None:
-        import pytest
-
         pytest.skip("native fastdata unavailable (no g++?)")
-    for name in ("data.aC", "data.spce", "equilibrated_data.hexane"):
-        a = read_data(f"{reference_dir}/examples/{name}", native=True)
-        b = read_data(f"{reference_dir}/examples/{name}", native=False)
-        np.testing.assert_array_equal(a.x, b.x)
-        np.testing.assert_array_equal(a.v, b.v)
-        np.testing.assert_array_equal(a.q, b.q)
-        np.testing.assert_array_equal(a.type, b.type)
-        np.testing.assert_array_equal(a.molecule, b.molecule)
-        np.testing.assert_array_equal(a.image, b.image)
-        np.testing.assert_array_equal(a.mass, b.mass)
-        np.testing.assert_array_equal(a.bonds, b.bonds)
-        np.testing.assert_array_equal(a.angles, b.angles)
+    # data.aC ships in this repository; the other two are the reference's
+    where = examples_dir if name == "data.aC" else f"{reference_dir}/examples"
+    a = read_data(f"{where}/{name}", native=True)
+    b = read_data(f"{where}/{name}", native=False)
+    np.testing.assert_array_equal(a.x, b.x)
+    np.testing.assert_array_equal(a.v, b.v)
+    np.testing.assert_array_equal(a.q, b.q)
+    np.testing.assert_array_equal(a.type, b.type)
+    np.testing.assert_array_equal(a.molecule, b.molecule)
+    np.testing.assert_array_equal(a.image, b.image)
+    np.testing.assert_array_equal(a.mass, b.mass)
+    np.testing.assert_array_equal(a.bonds, b.bonds)
+    np.testing.assert_array_equal(a.angles, b.angles)
 
 
 def test_dump_image(tmp_path):

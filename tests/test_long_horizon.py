@@ -23,7 +23,7 @@ GOLD = glob.glob(os.path.join(os.path.dirname(__file__), "goldens",
 def test_long_horizon_golden(path):
     if path == "<missing>":
         pytest.skip("no long-horizon goldens recorded yet "
-                    "(run tools/record_goldens.py on the TPU)")
+                    "(run tools/record_goldens.py on the card)")
     with open(path) as f:
         g = json.load(f)
     rows = g["rows"]
@@ -63,7 +63,7 @@ _STEP0_FIELDS = {"temp": 1e-3, "evdwl": 2e-3, "ecoul": 2e-3,
 
 def _press_tol(n_atoms: int) -> float:
     """press is a small residual of cancelling virial components
-    (spce_if: press ~200 from ~50k-scale terms), so CPU-vs-TPU f32
+    (spce_if: press ~200 from ~50k-scale terms), so CPU-vs-device f32
     reduction-order noise grows with deck size — measured 0.77% on the
     18k-atom spce_if deck and 0.85% on the 8.6k hexane_if deck (the
     dispersion virial's press ~54 comes from ~20k-scale cancelling
@@ -79,7 +79,7 @@ def test_step0_matches_golden(path):
     the recorded trace — ONE force evaluation at full deck scale, so a
     physics regression on spce/hexane/rhodo actually fails (VERDICT r2
     item 7).  Decks > 50k atoms cost minutes on the 1-CPU test box and
-    are gated behind RUN_SLOW=1 (the TPU/CI path)."""
+    are gated behind RUN_SLOW=1."""
     import yaml
     from lammps_buck_intel_tpu.run import build_simulation
 

@@ -81,7 +81,7 @@ def test_cellpppm_matches_generic_compute():
                                rtol=1e-9, atol=1e-12)
 
 
-def test_cellpair_simulation_with_pppm(reference_dir):
+def test_cellpair_simulation_with_pppm(examples_dir):
     """buck/coul/long + CellPPPM on the cell-pair engine conserves energy."""
     from lammps_buck_intel_tpu.io import read_data, velocity
     from lammps_buck_intel_tpu.models.pair import build_buck
@@ -90,7 +90,7 @@ def test_cellpair_simulation_with_pppm(reference_dir):
     )
 
     u = get_units("metal")
-    d = read_data(f"{reference_dir}/examples/data.aC")  # 1200-atom silica
+    d = read_data(f"{examples_dir}/data.aC")  # 1200-atom silica
     box = make_box(d.box_lo, d.box_hi)
     style = build_buck(
         2,

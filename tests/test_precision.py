@@ -1,9 +1,9 @@
-"""Precision-policy tests: the mixed-mode analog for f32-only hardware.
+"""Precision-policy tests: literal mixed mode and its two-float analog.
 
 The reference's mixed mode is f32 compute / f64 accumulate
-(/root/reference/pair_buck_intel.cpp:50-52).  TPUs have no f64, so
-``mixed`` resolves there to two-float (Neumaier) compensated integration
-(core/precision.py, integrate/nve.py two_sum_acc).
+(pair_buck_intel.cpp:50-52).  ``mixed`` is that literally and needs x64;
+``single_comp`` is the f32-only analog: two-float (Neumaier) compensated
+integration (core/precision.py, integrate/nve.py two_sum_acc).
 
 Measured context (recorded here so the numbers stay honest): on the 500-atom
 Buckingham melt at dt=0.001 over 8000 steps, energy drift/atom is
